@@ -1,6 +1,6 @@
-// Native host runtime for path_tracer_c_tpu.
+// Native host runtime for path_tracer_jax.
 //
-// TPU-native equivalents of the reference's C runtime components
+// Equivalents of the reference's C runtime components
 // (SURVEY.md SS2): the pthread worker pool C5 (/root/reference/src/
 // threadpool.c) and void* vector C6 (src/vector.c) become a C++17
 // condition-variable thread pool with correct in-flight accounting (the
@@ -9,7 +9,7 @@
 // 18,62 — deliberately not replicated); the BMP writer C7 (src/bitmap.c)
 // becomes a parallel row encoder producing byte-identical output.
 //
-// On TPU the *render* parallelism lives on the chips; this runtime covers
+// The *render* parallelism lives on the accelerator; this runtime covers
 // the host side: image encoding, asynchronous frame output for animation
 // sweeps (device renders frame n+1 while the host writes frame n), and
 // generic task submission. Exposed as a plain C ABI for ctypes.

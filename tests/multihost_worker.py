@@ -24,7 +24,7 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from path_tracer_c_tpu.parallel import distributed
+    from path_tracer_jax.parallel import distributed
 
     distributed.initialize(
         coordinator_address=f"localhost:{port}",
@@ -37,9 +37,9 @@ def main():
     import numpy as np
     import jax.numpy as jnp
 
-    import path_tracer_c_tpu as pt
-    from path_tracer_c_tpu import parallel
-    from path_tracer_c_tpu.scene import demo
+    import path_tracer_jax as pt
+    from path_tracer_jax import parallel
+    from path_tracer_jax.scene import demo
 
     distributed.health_check()
     scene = demo.diffuse_sphere_scene()

@@ -393,7 +393,7 @@ def incident_light_physical(sc, o, d, state, max_bounces, nee=True):
     cosine-weighted diffuse / mirror specular / reference refract mixture,
     NEE by solid-angle cone sampling against emissive spheres with
     single-counting, fixed 7-draw schedule. Third, fully independent
-    implementation of the physical estimator (VERDICT r2 item 7)."""
+    implementation of the physical estimator."""
     emitters = [
         i for i in range(sc["ns"])
         if sc["sph_active"][i]
@@ -525,7 +525,7 @@ def render_physical(scene, height, width, spp, max_bounces, seed,
 
 
 def scene_to_numpy(scene):
-    """Flatten a path_tracer_c_tpu Scene pytree into plain numpy arrays."""
+    """Flatten a path_tracer_jax Scene pytree into plain numpy arrays."""
     import jax
 
     g = lambda x: np.asarray(jax.device_get(x), dtype=np.float64)

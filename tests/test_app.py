@@ -5,7 +5,7 @@ import struct
 import numpy as np
 import pytest
 
-from path_tracer_c_tpu.app import main as app
+from path_tracer_jax.app import main as app
 
 
 def test_render_writes_bmp(tmp_path):
@@ -22,7 +22,7 @@ def test_render_writes_bmp(tmp_path):
 
 
 def test_render_checkpoint_resume(tmp_path):
-    from path_tracer_c_tpu.utils import config
+    from path_tracer_jax.utils import config
 
     out = tmp_path / "out.bmp"
     ckpt = tmp_path / "r.npz"
@@ -36,7 +36,7 @@ def test_render_checkpoint_resume(tmp_path):
     app.main(["render", "--config", str(cfgp)])
     assert ckpt.exists() and out.exists()
 
-    from path_tracer_c_tpu.utils import checkpoint as ck
+    from path_tracer_jax.utils import checkpoint as ck
 
     c = ck.load_render(ckpt)
     assert c.spp_done == 4
@@ -65,8 +65,7 @@ def test_fit_runs(tmp_path, capsys):
 
 def test_fit_roughness_mode_runs(tmp_path, capsys):
     """CLI rehearsal: fit --mode roughness drives the score-function
-    estimator end-to-end (VERDICT r4 missing 3 — rough_grad as a
-    supported entry point, not a leaf-API flag)."""
+    estimator end-to-end."""
     app.main([
         "fit", "--scene", "glossy", "--width", "8", "--height", "8",
         "--spp", "2", "--max-bounces", "2", "--steps", "2",
@@ -84,7 +83,7 @@ def test_unknown_scene_errors():
 
 def test_split_engine_rejects_mesh(tmp_path):
     """engine=split + multi-device mesh fails with an app-level message,
-    not a deep ValueError (ADVICE r2)."""
+    not a deep ValueError."""
     import json
 
     cfg = {
@@ -98,15 +97,22 @@ def test_split_engine_rejects_mesh(tmp_path):
         app.main(["render", "--config", str(p)])
 
 
-def test_render_engine_physical_pallas(tmp_path):
-    """--engine physical_pallas forces the Pallas physical megakernel
-    (interpreter mode off-TPU) from the CLI."""
+def test_render_engine_physical_pallas(tmp_path, monkeypatch):
+    """--engine physical_pallas forces the Pallas physical megakernel from
+    the CLI: without a GPU it refuses (no silent interpreter), and the
+    route reaches the kernel (run here in the interpreter)."""
+    from path_tracer_jax import backend
+
     out = tmp_path / "pp.bmp"
-    app.main([
+    argv = [
         "render", "--scene", "cornell", "--width", "128", "--height", "8",
         "--spp", "1", "--max-bounces", "2", "--engine", "physical_pallas",
         "--out", str(out),
-    ])
+    ]
+    with pytest.raises(backend.KernelUnavailable):
+        app.main(argv)
+    monkeypatch.setattr(backend, "kernel_interpret", lambda i, name: True)
+    app.main(argv)
     data = out.read_bytes()
     assert data[:2] == b"BM"
     w, h = struct.unpack("<ii", data[18:26])
@@ -115,7 +121,7 @@ def test_render_engine_physical_pallas(tmp_path):
 
 def test_render_with_device_mesh(tmp_path):
     """CLI render across the 8-fake-device mesh (config-5 style)."""
-    from path_tracer_c_tpu.utils import config
+    from path_tracer_jax.utils import config
 
     out = tmp_path / "mesh.bmp"
     cfg = config.RenderConfig(
@@ -131,9 +137,9 @@ def test_render_with_device_mesh(tmp_path):
     # must equal the single-device render exactly (global-index RNG)
     import jax.numpy as jnp
     import numpy as np
-    import path_tracer_c_tpu as pt
-    from path_tracer_c_tpu.scene import demo
-    from path_tracer_c_tpu.models.integrator import render_image_u8
+    import path_tracer_jax as pt
+    from path_tracer_jax.scene import demo
+    from path_tracer_jax.models.integrator import render_image_u8
 
     single = render_image_u8(
         pt.render_radiance(
@@ -151,13 +157,12 @@ def test_render_with_device_mesh(tmp_path):
 
 @pytest.mark.slow
 def test_config5_scale_rehearsal(tmp_path):
-    """Config-5 end-to-end rehearsal (VERDICT r2 item 9): drive the
-    ACTUAL configs/config5_sweep_2048_multihost.json semantics — Pallas
-    engine, mesh {tile:4, spp:2}, animated camera sweep, async native
-    frame writer — through the CLI on the 8-fake-device mesh, with the
-    workload scaled down (2048^2/256spp/48f -> 32x128/2spp/2f) so the
-    interpreter-mode megakernel stays testable. Then the same config's
-    render path with checkpointed chunks + resume."""
+    """Config-5 end-to-end rehearsal: drive the
+    ACTUAL configs/config5_sweep_2048_multihost.json semantics — auto
+    engine, a tile x spp mesh, animated camera sweep, async native frame
+    writer — through the CLI on the 8-virtual-device mesh, with the
+    workload scaled down (2048^2/256spp/48f -> 32x128/2spp/2f). Then the
+    same config's render path with checkpointed chunks + resume."""
     import json
     from pathlib import Path
 
@@ -165,11 +170,12 @@ def test_config5_scale_rehearsal(tmp_path):
         "configs/config5_sweep_2048_multihost.json"
     )
     acfg = json.loads(cfg_path.read_text())
-    assert acfg["render"]["mesh"] == {"tile": 4, "spp": 2}
-    assert acfg["render"]["engine"] == "pallas"
-    # scale the workload, preserve every structural knob (engine, mesh,
-    # scene, jitter, fov)
-    acfg["render"].update(width=128, height=32, spp=2, max_bounces=2)
+    assert acfg["render"]["mesh"] == {"tile": 2, "spp": 2}  # 4 cards
+    assert acfg["render"]["engine"] == "auto"
+    # scale the workload, preserve every structural knob (engine, scene,
+    # jitter, fov); the 8-device test host doubles the mesh's tile axis
+    acfg["render"].update(width=128, height=32, spp=2, max_bounces=2,
+                          mesh={"tile": 4, "spp": 2})
     acfg.update(frames=2, out_dir=str(tmp_path / "fr"))
     small = tmp_path / "cfg5_small.json"
     small.write_text(json.dumps(acfg))
@@ -194,7 +200,7 @@ def test_config5_scale_rehearsal(tmp_path):
     rpath.write_text(json.dumps(rcfg))
     app.main(["render", "--config", str(rpath)])
     assert out.exists()
-    from path_tracer_c_tpu.utils import checkpoint as ck_mod
+    from path_tracer_jax.utils import checkpoint as ck_mod
 
     c = ck_mod.load_render(ck)
     assert c.spp_done == 4
@@ -209,7 +215,7 @@ def test_terminal_live_view(tmp_path, capsys):
     also checked directly for escape structure."""
     import numpy as np
 
-    from path_tracer_c_tpu.utils.termview import frame_to_ansi
+    from path_tracer_jax.utils.termview import frame_to_ansi
 
     img = np.zeros((4, 6, 3), np.uint8)
     img[0, 0] = (255, 0, 0)
@@ -228,7 +234,7 @@ def test_terminal_live_view(tmp_path, capsys):
 
 
 def test_render_bounce_stats_metrics(tmp_path):
-    from path_tracer_c_tpu.utils.metrics import MetricsLogger
+    from path_tracer_jax.utils.metrics import MetricsLogger
 
     out = tmp_path / "out.bmp"
     mpath = tmp_path / "m.jsonl"
@@ -248,7 +254,7 @@ def test_render_bounce_stats_metrics(tmp_path):
 
 def test_render_bounce_stats_physical_engine(tmp_path):
     """--bounce-stats with the physical engine reports NEE visibility."""
-    from path_tracer_c_tpu.utils.metrics import MetricsLogger
+    from path_tracer_jax.utils.metrics import MetricsLogger
 
     mpath = tmp_path / "m.jsonl"
     app.main([
@@ -269,9 +275,9 @@ def test_fit_checkpoint_resume_bit_identical(tmp_path):
     """fit --checkpoint-path: interrupted-then-resumed == uninterrupted
     (step-indexed seeds; utils/checkpoint.save_fit)."""
     import jax.numpy as jnp
-    import path_tracer_c_tpu as pt
-    from path_tracer_c_tpu.grad import diff
-    from path_tracer_c_tpu.scene import demo
+    import path_tracer_jax as pt
+    from path_tracer_jax.grad import diff
+    from path_tracer_jax.scene import demo
 
     scene = demo.diffuse_sphere_scene()
     cam = pt.Camera.reference()
@@ -309,7 +315,7 @@ def test_fit_cli_checkpoint(tmp_path):
         "--checkpoint-path", str(ckpt), "--checkpoint-every", "1",
     ])
     assert ckpt.exists()
-    from path_tracer_c_tpu.utils import checkpoint as ck
+    from path_tracer_jax.utils import checkpoint as ck
 
     with np.load(ckpt) as z:
         assert int(z["step"]) == 3
@@ -319,7 +325,7 @@ def test_fit_cli_checkpoint(tmp_path):
 def test_progressive_preview_writes_intermediates(tmp_path, monkeypatch):
     """--progressive rewrites the output after each chunk; the final image
     equals the non-progressive render bit-for-bit."""
-    from path_tracer_c_tpu.utils import bitmap as bm
+    from path_tracer_jax.utils import bitmap as bm
 
     writes = []
     real_write = bm.write_bitmap
@@ -352,9 +358,9 @@ def test_debug_nans_flag_catches_nan(tmp_path):
     the same render without the flag writes the (bad) image silently."""
     import jax.numpy as jnp
     import dataclasses
-    import path_tracer_c_tpu as pt
-    from path_tracer_c_tpu.scene import demo
-    from path_tracer_c_tpu.scene.io import save_scene
+    import path_tracer_jax as pt
+    from path_tracer_jax.scene import demo
+    from path_tracer_jax.scene.io import save_scene
 
     scene = demo.diffuse_sphere_scene()
     bad = dataclasses.replace(

@@ -4,7 +4,7 @@ import struct
 
 import numpy as np
 
-from path_tracer_c_tpu.utils.bitmap import bitmap_bytes, write_bitmap
+from path_tracer_jax.utils.bitmap import bitmap_bytes, write_bitmap
 
 
 def test_header_fields():

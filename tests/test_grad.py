@@ -15,9 +15,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import path_tracer_c_tpu as pt
-from path_tracer_c_tpu.scene import demo
-from path_tracer_c_tpu.grad import diff
+import path_tracer_jax as pt
+from path_tracer_jax.scene import demo
+from path_tracer_jax.grad import diff
 
 
 H, W, SPP, BOUNCES = 8, 8, 4, 2

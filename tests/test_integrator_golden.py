@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import path_tracer_c_tpu as pt
-from path_tracer_c_tpu.scene import demo
+import path_tracer_jax as pt
+from path_tracer_jax.scene import demo
 import reference_tracer as ref
 
 
@@ -43,11 +43,11 @@ def test_golden_cornell():
     _compare(demo.cornell_spheres_scene(), 10, 12, 2, 3, seed=2)
 
 
-# -- physical tier vs its own scalar oracle (VERDICT r2 item 7) -------------
+# -- physical tier vs its own scalar oracle -------------
 
 
 def _compare_physical(scene, h, w, spp, bounces, seed, nee=True):
-    from path_tracer_c_tpu.models.physical import render_physical
+    from path_tracer_jax.models.physical import render_physical
 
     cam = pt.Camera.reference()
     img = np.asarray(
@@ -184,7 +184,7 @@ def test_bounce_stats_conservation():
     """Per-bounce event histogram obeys ray conservation: every ray at
     bounce b either hits or misses, and the rays reaching bounce b+1 are
     exactly bounce b's hits minus its TIR deaths."""
-    from path_tracer_c_tpu.models.integrator import render_bounce_stats
+    from path_tracer_jax.models.integrator import render_bounce_stats
 
     scene = demo.glass_scene() if hasattr(demo, "glass_scene") else demo.demo_scene()
     cam = pt.Camera.reference()

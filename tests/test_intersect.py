@@ -4,8 +4,8 @@ the scalar reference (semantics of rtx_frag.glsl:92-192)."""
 import numpy as np
 import jax.numpy as jnp
 
-from path_tracer_c_tpu import SceneBuilder, trace
-from path_tracer_c_tpu.ops.intersect import ray_sphere_t, ray_triangle_t
+from path_tracer_jax import SceneBuilder, trace
+from path_tracer_jax.ops.intersect import ray_sphere_t, ray_triangle_t
 import reference_tracer as ref
 
 

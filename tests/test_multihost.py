@@ -2,7 +2,7 @@
 render one tile/spp-sharded image via jax.distributed, and the result must
 be bit-identical to the single-process render (global-counter RNG).
 
-This is the CPU stand-in for the N-host TPU path (SURVEY.md SS4 (d)): the
+This is the CPU stand-in for the N-host path (SURVEY.md SS4 (d)): the
 same parallel/ code paths — distributed.initialize, mesh over all global
 devices, shard_map with pmean — run across real process boundaries.
 """
@@ -62,8 +62,8 @@ def test_two_process_sharded_render(tmp_path):
         assert w.returncode == 0, f"worker {i} failed:\n{logs[i][-3000:]}"
     assert out.exists()
 
-    import path_tracer_c_tpu as pt
-    from path_tracer_c_tpu.scene import demo
+    import path_tracer_jax as pt
+    from path_tracer_jax.scene import demo
 
     single = np.asarray(
         pt.render_radiance(

@@ -6,10 +6,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import path_tracer_c_tpu as pt
-from path_tracer_c_tpu.scene import demo
-from path_tracer_c_tpu.ops.pallas_grad import render_pallas_bwd
-from path_tracer_c_tpu.ops.pallas_kernels import render_pallas_vjp
+import path_tracer_jax as pt
+from path_tracer_jax.scene import demo
+from path_tracer_jax.ops.pallas_grad import render_pallas_bwd
+from path_tracer_jax.ops.pallas_kernels import render_pallas_vjp
 
 
 CAM = pt.Camera.reference()
@@ -45,7 +45,7 @@ def _compare(scene, h, w, spp, bounces, seed, gseed, tile=(8, 128),
     )
     d_core = vjp(g)[0]
     d_hand = render_pallas_bwd(scene, CAM, g, h, w, spp, bounces,
-                               jnp.uint32(seed), tile=tile, jitter=jitter)
+                               jnp.uint32(seed), tile=tile, jitter=jitter, interpret=True)
     pairs = [
         (d_hand.materials.albedo, d_core.materials.albedo),
         (d_hand.materials.emission_color, d_core.materials.emission_color),
@@ -84,7 +84,7 @@ def test_bwd_matches_core_cornell():
 
 
 def _black_albedo_scene():
-    """Camera inside an exactly-black sphere (ADVICE r1 high): the lane's
+    """Camera inside an exactly-black sphere: the lane's
     throughput hits exact zero at bounce 0, but d_albedo there needs the
     suffix carry from the *untraced future* path — a replay that exits on
     zero throughput gets it ~2x wrong."""
@@ -122,7 +122,7 @@ def test_bwd_matches_core_jitter():
 
 def test_bwd_tile_fallback_odd_height():
     """Heights not divisible by the default (64, 128) tile auto-shrink
-    instead of raising (ADVICE r1 medium)."""
+    instead of raising."""
     _compare(_mixed_scene(), 24, 128, 2, 3, seed=19, gseed=6,
              tile=(64, 128))
 
@@ -135,13 +135,13 @@ def test_bwd_row_block_matches_full():
         np.random.default_rng(7).standard_normal((h, w, 3)), jnp.float32
     )
     d_full = render_pallas_bwd(scene, CAM, g, h, w, spp, bounces,
-                               jnp.uint32(seed), tile=(8, 128))
+                               jnp.uint32(seed), tile=(8, 128), interpret=True)
     d_top = render_pallas_bwd(scene, CAM, g[:8], h, w, spp, bounces,
                               jnp.uint32(seed), tile=(8, 128),
-                              row_start=0, rows=8)
+                              row_start=0, rows=8, interpret=True)
     d_bot = render_pallas_bwd(scene, CAM, g[8:], h, w, spp, bounces,
                               jnp.uint32(seed), tile=(8, 128),
-                              row_start=8, rows=8)
+                              row_start=8, rows=8, interpret=True)
     for get in (
         lambda d: d.materials.albedo,
         lambda d: d.materials.emission_color,
@@ -164,8 +164,8 @@ def test_fused_primal_bit_matches_forward():
     with jitter XLA contracts the sub-pixel camera chain's mul+add into
     FMA differently between the two graphs, so a few pixels move by 1 ulp
     (checked to that tolerance)."""
-    from path_tracer_c_tpu.ops.pallas_grad import render_pallas_fused
-    from path_tracer_c_tpu.ops.pallas_kernels import render_pallas
+    from path_tracer_jax.ops.pallas_grad import render_pallas_fused
+    from path_tracer_jax.ops.pallas_kernels import render_pallas
 
     for scene, jitter in ((_mixed_scene(), False),
                           (demo.demo_scene(), True),
@@ -173,10 +173,10 @@ def test_fused_primal_bit_matches_forward():
         h, w, spp, bounces, seed = 16, 128, 3, 4, 21
         fwd = np.asarray(
             render_pallas(scene, CAM, h, w, spp, bounces, jnp.uint32(seed),
-                          jitter=jitter)
+                          jitter=jitter, interpret=True)
         )
         fused, _ = render_pallas_fused(
-            scene, CAM, h, w, spp, bounces, jnp.uint32(seed), jitter=jitter
+            scene, CAM, h, w, spp, bounces, jnp.uint32(seed), jitter=jitter, interpret=True
         )
         if jitter:
             np.testing.assert_allclose(fwd, np.asarray(fused), rtol=1e-6,
@@ -194,7 +194,7 @@ def test_vjp_wrapper_uses_hand_kernel():
         sc = dataclasses.replace(
             scene, materials=dataclasses.replace(scene.materials, albedo=albedo)
         )
-        img = render_pallas_vjp(sc, CAM, h, w, spp, bounces, jnp.uint32(2))
+        img = render_pallas_vjp(sc, CAM, h, w, spp, bounces, jnp.uint32(2), interpret=True)
         return jnp.mean((img - target) ** 2)
 
     def loss_core(albedo):
@@ -214,42 +214,42 @@ def test_fused_mat_skip_variant_matches():
     """The mat_skip=True variant (per-material presence-guarded
     accumulation — kept for very large material tables, slower on the
     bench scene) must produce the identical Jacobian."""
-    from path_tracer_c_tpu.ops.pallas_grad import render_pallas_fused
+    from path_tracer_jax.ops.pallas_grad import render_pallas_fused
 
     scene = _mixed_scene()
     h, w, spp, bounces, seed = 8, 128, 2, 3, 43
     img0, j0 = render_pallas_fused(
-        scene, CAM, h, w, spp, bounces, jnp.uint32(seed), mat_skip=False
+        scene, CAM, h, w, spp, bounces, jnp.uint32(seed), mat_skip=False, interpret=True
     )
     img1, j1 = render_pallas_fused(
-        scene, CAM, h, w, spp, bounces, jnp.uint32(seed), mat_skip=True
+        scene, CAM, h, w, spp, bounces, jnp.uint32(seed), mat_skip=True, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(img0), np.asarray(img1))
     np.testing.assert_array_equal(np.asarray(j0), np.asarray(j1))
 
 
 def test_fused_executed_round_counter_matches_forward():
-    """count_rounds on the FUSED kernel (VERDICT r4 weak 2): the replay
+    """count_rounds on the FUSED kernel: the replay
     runs the exact same "once"/sky-gate schedule as the forward, so the
     executed-round totals must be EQUAL — and turning the counter on
     must not perturb the primal (the counter is an int loop-carry + one
-    SMEM store)."""
-    from path_tracer_c_tpu.ops.pallas_grad import render_pallas_fused
-    from path_tracer_c_tpu.ops.pallas_kernels import render_pallas
+    store per program)."""
+    from path_tracer_jax.ops.pallas_grad import render_pallas_fused
+    from path_tracer_jax.ops.pallas_kernels import render_pallas
 
     scene = demo.demo_scene()
     h, w, spp, bounces = 16, 128, 2, 3
     img_f, cnt_f = render_pallas(
         scene, CAM, h, w, spp, bounces, jnp.uint32(7), tile=(8, 128),
-        jitter=False, count_rounds=True,
+        jitter=False, count_rounds=True, interpret=True,
     )
     img_g, _, cnt_g = render_pallas_fused(
         scene, CAM, h, w, spp, bounces, jnp.uint32(7), tile=(8, 128),
-        jitter=False, count_rounds=True,
+        jitter=False, count_rounds=True, interpret=True,
     )
     assert int(cnt_f) == int(cnt_g) > 0
     img_g0, _ = render_pallas_fused(
         scene, CAM, h, w, spp, bounces, jnp.uint32(7), tile=(8, 128),
-        jitter=False,
+        jitter=False, interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(img_g), np.asarray(img_g0))

@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-import path_tracer_c_tpu as pt
-from path_tracer_c_tpu.scene import demo
-from path_tracer_c_tpu import parallel
-from path_tracer_c_tpu.grad import diff
+import path_tracer_jax as pt
+from path_tracer_jax.scene import demo
+from path_tracer_jax import parallel
+from path_tracer_jax.grad import diff
 
 
 CAM = pt.Camera.reference()
@@ -168,7 +168,7 @@ def test_sharded_pallas_engine_matches_core(scene):
     fast = np.asarray(
         parallel.render_sharded(
             scene, CAM, h, w, spp, bounces, jnp.uint32(3), mesh,
-            engine="pallas",
+            engine="pallas", interpret=True,
         )
     )
     np.testing.assert_allclose(fast, core, rtol=1e-5, atol=1e-5)
@@ -177,7 +177,7 @@ def test_sharded_pallas_engine_matches_core(scene):
 def test_sharded_pallas_gradient_matches_unsharded_core(scene):
     """The fast multi-chip backward: Pallas fwd + hand-written bwd kernel
     per shard, gradients psummed by shard_map's transpose, vs the
-    unsharded core-AD gradient (VERDICT r1 item 2)."""
+    unsharded core-AD gradient."""
     import dataclasses
 
     h, w, spp, bounces = 16, 128, 4, 2
@@ -189,7 +189,7 @@ def test_sharded_pallas_gradient_matches_unsharded_core(scene):
             scene, materials=dataclasses.replace(scene.materials, albedo=albedo)
         )
         img = parallel.render_sharded(
-            sc, CAM, h, w, spp, bounces, jnp.uint32(3), mesh, engine="pallas"
+            sc, CAM, h, w, spp, bounces, jnp.uint32(3), mesh, engine="pallas", interpret=True
         )
         return jnp.mean((img - target) ** 2)
 
@@ -211,7 +211,7 @@ def _flipfree_physical_scene():
     unit-scale spheres + one emitter. r=1000 walls make |oc|^2 - r^2
     cancel catastrophically in f32, so rare samples flip discrete
     decisions between compilations and force loose gradient gates
-    (VERDICT r2 weak 6); this scene is flip-free and the gate is tight."""
+; this scene is flip-free and the gate is tight."""
     b = pt.SceneBuilder(sky_color=(0.25, 0.3, 0.4))
     ground = b.add_material(albedo=(0.55, 0.45, 0.35), roughness=1.0)
     lamp = b.add_material(albedo=(0.9, 0.9, 0.9),
@@ -236,7 +236,7 @@ def test_sharded_physical_pallas_gradient_matches_core():
     material backward per shard vs the unsharded core physical gradient."""
     import dataclasses
 
-    from path_tracer_c_tpu.models.physical import render_physical
+    from path_tracer_jax.models.physical import render_physical
 
     scene_l = _flipfree_physical_scene()
     h, w, spp, bounces = 16, 128, 2, 2
@@ -254,7 +254,7 @@ def test_sharded_physical_pallas_gradient_matches_core():
     def loss_sharded_fast(albedo):
         img = parallel.render_sharded(
             with_albedo(albedo), CAM, h, w, spp * 4, bounces, jnp.uint32(3),
-            mesh, engine="physical_pallas", jitter=False,
+            mesh, engine="physical_pallas", jitter=False, interpret=True,
         )
         return jnp.mean((img - target) ** 2)
 
@@ -274,13 +274,12 @@ def test_sharded_physical_pallas_gradient_matches_core():
 
 
 def test_sharded_physical_geom_gradient_matches_unsharded():
-    """geom=True under the mesh (ADVICE r3: render_sharded used to
-    hardcode geom=False — a sharded geometry fit silently got zeros):
+    """geom=True under the mesh:
     the psummed NEE emitter-geometry cotangent must equal the unsharded
     fused cotangent, and must be nonzero for the light."""
     import dataclasses
 
-    from path_tracer_c_tpu.ops.pallas_physical import (
+    from path_tracer_jax.ops.pallas_physical import (
         render_physical_pallas_vjp,
     )
 
@@ -302,14 +301,14 @@ def test_sharded_physical_geom_gradient_matches_unsharded():
         img = parallel.render_sharded(
             with_light(center), CAM, h, w, spp, bounces, jnp.uint32(3),
             mesh, engine="physical_pallas", jitter=False, geom=True,
-            n_em_cap=1,
+            n_em_cap=1, interpret=True,
         )
         return jnp.mean((img - target) ** 2)
 
     def loss_single(center):
         img = render_physical_pallas_vjp(
             with_light(center), CAM, h, w, spp, bounces, jnp.uint32(3),
-            jitter=False, geom=True, n_em_cap=1,
+            jitter=False, geom=True, n_em_cap=1, interpret=True,
         )
         return jnp.mean((img - target) ** 2)
 
@@ -322,7 +321,7 @@ def test_sharded_physical_geom_gradient_matches_unsharded():
 
 def test_sharded_physical_engine_matches_unsharded(scene):
     """Physical BRDF/NEE tier under a mesh == its unsharded render."""
-    from path_tracer_c_tpu.models.physical import render_physical
+    from path_tracer_jax.models.physical import render_physical
 
     h, w, spp, bounces = 16, 16, 4, 2
     scene_l = demo.cornell_spheres_scene()
@@ -361,11 +360,11 @@ def _tri_lamp_scene():
 
 
 def test_sharded_tri_nee_matches_unsharded():
-    """tri_nee through the parallel layer (VERDICT r4 missing 2): the
+    """tri_nee through the parallel layer: the
     sharded tri-NEE render equals its unsharded render in BOTH physical
     engines, and tri_nee on a non-physical engine raises."""
-    from path_tracer_c_tpu.models.physical import render_physical
-    from path_tracer_c_tpu.ops.pallas_physical import (
+    from path_tracer_jax.models.physical import render_physical
+    from path_tracer_jax.ops.pallas_physical import (
         render_physical_pallas_vjp,
     )
 
@@ -380,7 +379,7 @@ def test_sharded_tri_nee_matches_unsharded():
         sharded = np.asarray(
             parallel.render_sharded(
                 scene_t, CAM, h, w, spp, bounces, jnp.uint32(5), mesh,
-                engine=engine, jitter=False, tri_nee=True,
+                engine=engine, jitter=False, tri_nee=True, interpret=True,
             )
         )
         np.testing.assert_allclose(sharded, single, rtol=1e-5, atol=1e-5,
@@ -398,7 +397,7 @@ def test_sharded_tri_nee_vertex_gradient_matches_unsharded():
     nonzero for the lamp."""
     import dataclasses
 
-    from path_tracer_c_tpu.ops.pallas_physical import (
+    from path_tracer_jax.ops.pallas_physical import (
         render_physical_pallas_vjp,
     )
 
@@ -419,7 +418,7 @@ def test_sharded_tri_nee_vertex_gradient_matches_unsharded():
         img = parallel.render_sharded(
             with_lamp(v0), CAM, h, w, spp, bounces, jnp.uint32(3), mesh,
             engine="physical_pallas", jitter=False, geom=True,
-            n_em_cap=1, tri_nee=True, tri_em_cap=2,
+            n_em_cap=1, tri_nee=True, tri_em_cap=2, interpret=True,
         )
         return jnp.mean((img - target) ** 2)
 
@@ -427,7 +426,7 @@ def test_sharded_tri_nee_vertex_gradient_matches_unsharded():
         img = render_physical_pallas_vjp(
             with_lamp(v0), CAM, h, w, spp, bounces, jnp.uint32(3),
             jitter=False, geom=True, n_em_cap=1, tri_nee=True,
-            tri_em_cap=2,
+            tri_em_cap=2, interpret=True,
         )
         return jnp.mean((img - target) ** 2)
 
@@ -444,7 +443,7 @@ def test_sharded_rough_grad_matches_unsharded():
     unsharded one, and is nonzero."""
     import dataclasses
 
-    from path_tracer_c_tpu.ops.pallas_physical import (
+    from path_tracer_jax.ops.pallas_physical import (
         render_physical_pallas_vjp,
     )
 
@@ -465,14 +464,14 @@ def test_sharded_rough_grad_matches_unsharded():
     def loss_sharded(r):
         img = parallel.render_sharded(
             with_rough(r), CAM, h, w, spp, bounces, jnp.uint32(3), mesh,
-            engine="physical_pallas", jitter=False, rough_grad=True,
+            engine="physical_pallas", jitter=False, rough_grad=True, interpret=True,
         )
         return jnp.mean((img - target) ** 2)
 
     def loss_single(r):
         img = render_physical_pallas_vjp(
             with_rough(r), CAM, h, w, spp, bounces, jnp.uint32(3),
-            jitter=False, geom=False, rough_grad=True,
+            jitter=False, geom=False, rough_grad=True, interpret=True,
         )
         return jnp.mean((img - target) ** 2)
 
@@ -484,5 +483,5 @@ def test_sharded_rough_grad_matches_unsharded():
     with pytest.raises(ValueError, match="rough_grad"):
         parallel.render_sharded(
             scene_g, CAM, h, w, spp, bounces, jnp.uint32(3), mesh,
-            engine="pallas", rough_grad=True,
+            engine="pallas", rough_grad=True, interpret=True,
         )

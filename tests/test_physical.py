@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import path_tracer_c_tpu as pt
-from path_tracer_c_tpu.models.physical import render_physical
+import path_tracer_jax as pt
+from path_tracer_jax.models.physical import render_physical
 
 
 CAM = pt.Camera.reference()
@@ -158,7 +158,7 @@ def _fd_check(loss_at, x0, eps, sel=None, rtol=6e-2, atol=2e-5):
 
 def test_light_center_gradient_matches_fd():
     """Sphere-light CENTER gradients: the NEE solid-angle/cosine chain
-    depends on the emitter position continuously (VERDICT r1 item 6)."""
+    depends on the emitter position continuously."""
     scene = _light_scene()
     h = w = 12
     spp, bounces, seed = 8, 2, jnp.uint32(5)
@@ -221,7 +221,7 @@ def test_triangle_vertex_gradient_matches_fd():
 def test_fit_geometry_recovers_light_position():
     """Inverse rendering of GEOMETRY: recover a perturbed emitter
     center/radius from pixel loss (grad/diff.fit_geometry)."""
-    from path_tracer_c_tpu.grad.diff import fit_geometry
+    from path_tracer_jax.grad.diff import fit_geometry
 
     true_scene = _light_scene()
     h = w = 16
@@ -267,7 +267,7 @@ def test_roughness_score_function_gradient_matches_expectation_fd():
     Scene: one half-rough sphere whose lobes see very different light —
     the diffuse lobe gets NEE from a bright lamp, the specular lobe
     mostly bounces into a dark sky — so d/d(rough) is strongly nonzero
-    (VERDICT r3 missing 4 / next 8). Measured: score 0.00538 vs FD
+. Measured: score 0.00538 vs FD
     0.00542 at eps=0.05, stable across seeds."""
     b = pt.SceneBuilder(sky_color=(0.02, 0.02, 0.03))
     m = b.add_material(albedo=(0.9, 0.9, 0.9), roughness=0.5)
@@ -475,14 +475,14 @@ def test_fit_triangle_light_position_with_tri_nee():
 
 @pytest.mark.slow
 def test_fit_roughness_recovery_driver():
-    """rough_grad as a CAPABILITY (VERDICT r4 missing 3): the
+    """rough_grad as a CAPABILITY: the
     fit_materials driver recovers a corrupted roughness through the
     score-function estimator (engine='physical', rough_grad=True) — the
     REINFORCE term drives a real optimization, not just a gradient
     check. Same lobe-asymmetry scene as the FD test: the sphere's
     diffuse lobe sees a bright lamp, its specular lobe a dark sky, so
     the loss is strongly roughness-sensitive."""
-    from path_tracer_c_tpu.grad.diff import fit_materials
+    from path_tracer_jax.grad.diff import fit_materials
 
     b = pt.SceneBuilder(sky_color=(0.02, 0.02, 0.03))
     m = b.add_material(albedo=(0.9, 0.9, 0.9), roughness=0.5)
@@ -523,22 +523,22 @@ def test_fit_roughness_recovery_driver():
 def test_rough_grad_requires_physical_engine():
     """rough_grad through a non-physical engine must raise, not silently
     return zero roughness gradients (plumbing contract). Both physical
-    engines accept it since r5 (the Pallas engine emits the REINFORCE
+    engines accept it (the Pallas engine emits the REINFORCE
     term as fused Jacobian planes)."""
-    from path_tracer_c_tpu.grad.diff import fit_materials, render_loss
+    from path_tracer_jax.grad.diff import fit_materials, render_loss
 
     scene = pt.demo.cornell_spheres_scene()
     for engine in ("auto", "pallas", "core"):
         with pytest.raises(ValueError, match="rough_grad"):
             render_loss(scene, jnp.zeros((8, 8, 3)), CAM, 8, 8, 2, 2,
-                        jnp.uint32(0), engine=engine, rough_grad=True)
+                        jnp.uint32(0), engine=engine, rough_grad=True, interpret=True)
     with pytest.raises(ValueError, match="rough_grad"):
         fit_materials(scene, jnp.zeros((8, 8, 3)), CAM, 8, 8, 2, 2,
-                      steps=1, engine="auto", rough_grad=True)
+                      steps=1, engine="auto", rough_grad=True, interpret=True)
     # the physical_pallas engine accepts rough_grad (fused planes)
     l = render_loss(scene, jnp.zeros((8, 128, 3)), CAM, 8, 128, 2, 2,
                     jnp.uint32(0), engine="physical_pallas",
-                    rough_grad=True)
+                    rough_grad=True, interpret=True)
     assert np.isfinite(float(l))
 
 
@@ -546,7 +546,7 @@ def test_rough_grad_composes_with_tri_nee():
     """The score-function roughness tangent and the tri-NEE estimator
     are independent features of the same 7-draw schedule — together
     they must give a finite, nonzero d/d(roughness) on a triangle-lit
-    scene (VERDICT r4 weak 5)."""
+    scene."""
     b = pt.SceneBuilder(sky_color=(0.0, 0.0, 0.0))
     m = b.add_material(albedo=(0.9, 0.9, 0.9), roughness=0.5)
     ground = b.add_material(albedo=(0.4, 0.35, 0.3), roughness=1.0)
@@ -580,13 +580,12 @@ def test_rough_grad_composes_with_tri_nee():
 
 @pytest.mark.slow
 def test_fit_camera_recovers_pose_core_and_fd():
-    """Camera-pose recovery through BOTH supported routes (VERDICT r4
-    item 6): core AD and the finite-difference mode over the fast
+    """Camera-pose recovery through BOTH supported routes: core AD and the finite-difference mode over the fast
     Pallas forward. The Pallas-VJP engine must raise — its camera
     cotangents are zero by contract, and a silently frozen camera fit
     must not be constructible."""
-    from path_tracer_c_tpu.grad.diff import fit_camera
-    from path_tracer_c_tpu.ops.camera import Camera
+    from path_tracer_jax.grad.diff import fit_camera
+    from path_tracer_jax.ops.camera import Camera
 
     b = pt.SceneBuilder(sky_color=(0.05, 0.06, 0.08))
     ground = b.add_material(albedo=(0.55, 0.5, 0.45), roughness=1.0)
@@ -618,7 +617,7 @@ def test_fit_camera_recovers_pose_core_and_fd():
     for engine in ("physical", "physical_fd"):
         fitted, losses = fit_camera(
             scene, target, cam0, h, w, spp, bounces, steps=40, lr=0.02,
-            seed0=5, engine=engine,
+            seed0=5, engine=engine, interpret=True,
         )
         # Gate on what the fit controls: the recovered VIEW. At 16x16 the
         # exact pose is weakly identifiable (a small translate+rotate
@@ -632,16 +631,16 @@ def test_fit_camera_recovers_pose_core_and_fd():
 
     with pytest.raises(ValueError, match="camera cotangents are zero"):
         fit_camera(scene, target, cam0, h, w, spp, bounces,
-                   engine="physical_pallas")
+                   engine="physical_pallas", interpret=True)
 
 
 def test_fit_camera_checkpoint_resume_returns_best(tmp_path):
-    """Review r5 regression pin: the best-seen pose rides inside the
+    """Regression pin: the best-seen pose rides inside the
     checkpointed fit state, so re-invoking a completed checkpointed fit
     (zero steps executed) still returns the BEST pose, not the initial
     camera."""
-    from path_tracer_c_tpu.grad.diff import fit_camera
-    from path_tracer_c_tpu.ops.camera import Camera
+    from path_tracer_jax.grad.diff import fit_camera
+    from path_tracer_jax.ops.camera import Camera
 
     # needs an emitter: the physical tier's camera gradient flows only
     # through the NEE cosine/solid-angle terms (no lamp -> exactly zero
@@ -690,11 +689,11 @@ def test_fit_camera_checkpoint_resume_returns_best(tmp_path):
 
 
 def test_fit_camera_derives_fov_from_camera_init():
-    """Review r5: fit_camera must rebuild candidate cameras with
+    """fit_camera must rebuild candidate cameras with
     camera_init's FOV, not a hardcoded 90 degrees — at step 0 the
     rebuilt camera must match camera_init."""
-    from path_tracer_c_tpu.grad.diff import fit_camera
-    from path_tracer_c_tpu.ops.camera import Camera
+    from path_tracer_jax.grad.diff import fit_camera
+    from path_tracer_jax.ops.camera import Camera
 
     scene = pt.demo.diffuse_sphere_scene()
     cam60 = Camera.reference(60.0)

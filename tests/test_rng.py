@@ -4,7 +4,7 @@ statistically sound (SURVEY.md SS4 determinism strategy)."""
 import numpy as np
 import jax.numpy as jnp
 
-from path_tracer_c_tpu.ops import rng
+from path_tracer_jax.ops import rng
 import reference_tracer as ref
 
 

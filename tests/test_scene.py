@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from path_tracer_c_tpu import SceneBuilder, demo
+from path_tracer_jax import SceneBuilder, demo
 
 
 def test_add_material_returns_index():
@@ -76,7 +76,7 @@ def test_scene_is_pytree():
 
 
 def test_scene_json_roundtrip(tmp_path):
-    from path_tracer_c_tpu.scene import io as scene_io
+    from path_tracer_jax.scene import io as scene_io
 
     scene = demo.demo_scene()
     p = tmp_path / "demo.json"
@@ -91,8 +91,8 @@ def test_scene_json_roundtrip(tmp_path):
 
 
 def test_scene_json_renders_identically(tmp_path):
-    from path_tracer_c_tpu.scene import io as scene_io
-    import path_tracer_c_tpu as pt
+    from path_tracer_jax.scene import io as scene_io
+    import path_tracer_jax as pt
 
     scene = demo.diffuse_sphere_scene()
     p = tmp_path / "s.json"

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import path_tracer_c_tpu as pt
-from path_tracer_c_tpu.scene import demo
-from path_tracer_c_tpu.utils import bitmap, checkpoint as ck, config, metrics, native
+import path_tracer_jax as pt
+from path_tracer_jax.scene import demo
+from path_tracer_jax.utils import bitmap, checkpoint as ck, config, metrics, native
 
 
 # -- config -----------------------------------------------------------------
@@ -92,9 +92,14 @@ def test_resume_bit_identical():
 
 # -- native runtime ---------------------------------------------------------
 
-needs_native = pytest.mark.skipif(
-    not (native.available() or native.build()), reason="native build failed"
-)
+@pytest.fixture(scope="session")
+def native_lib():
+    """The native runtime, built once per test session (per worker)."""
+    if not (native.available() or native.build()):
+        pytest.skip("native build failed (needs g++)")
+
+
+needs_native = pytest.mark.usefixtures("native_lib")
 
 
 @needs_native
@@ -136,26 +141,16 @@ def test_native_threadpool():
 
 # -- profiling --------------------------------------------------------------
 
-def test_roofline_estimate():
-    from path_tracer_c_tpu.utils import profiling
-
-    r = profiling.roofline(256, 256, 8, 4, n_spheres=16, n_triangles=8,
-                           n_materials=16)
-    assert r["rays"] == 256 * 256 * 8 * 5
-    assert r["flops"] == r["rays"] * r["flops_per_ray"]
-    assert r["sol_seconds"] > 0
-
-
 def test_time_fn():
     import jax.numpy as jnp
-    from path_tracer_c_tpu.utils import profiling
+    from path_tracer_jax.utils import profiling
 
     t = profiling.time_fn(lambda x: x * 2, jnp.ones(16), warmup=1, iters=3)
     assert t >= 0
 
 
 def test_distributed_initialize_single_process_noop():
-    from path_tracer_c_tpu.parallel import distributed
+    from path_tracer_jax.parallel import distributed
 
     distributed.initialize(num_processes=1)  # must not raise
 
@@ -171,57 +166,3 @@ def test_async_writer_large_frames(tmp_path):
     w.drain()
     for i in range(4):
         assert (tmp_path / f"big{i}.bmp").read_bytes() == bitmap.bitmap_bytes(img)
-
-
-def test_flops_count_simple():
-    """Jaxpr op counter: exact counts on a known function."""
-    import jax.numpy as jnp
-    from path_tracer_c_tpu.utils import flops
-
-    def f(x):
-        return jnp.sum(jnp.sqrt(x * 2.0 + 1.0))
-
-    c = flops.count_ops(f, jnp.ones((8, 16)))
-    assert c["alu"] == 128 * 2 + 128  # mul + add + reduce
-    assert c["transcendental"] == 128  # sqrt
-    assert c["unknown"] == 0
-
-
-def test_flops_scan_and_while_multipliers():
-    import jax
-    import jax.numpy as jnp
-    from path_tracer_c_tpu.utils import flops
-
-    def f(x):
-        def body(c, _):
-            return c * 2.0, None
-
-        c, _ = jax.lax.scan(body, x, None, length=5)
-        return jax.lax.while_loop(
-            lambda v: jnp.sum(v) < 100.0, lambda v: v + 1.0, c
-        )
-
-    c = flops.count_ops(f, jnp.ones((4,)), while_trips=3)
-    # scan: 5 * 4 muls; while body: 3 * 4 adds; while cond: 3 * (4 + 1)
-    assert c["alu"] == 20 + 12 + 3 * 5, c
-
-
-def test_kernel_op_counts_covers_all_prims():
-    """The megakernel's jaxpr contains no primitives the op table
-    doesn't classify (else MFU numbers silently undercount)."""
-    import jax.numpy as jnp
-    import path_tracer_c_tpu as pt
-    from path_tracer_c_tpu.scene import demo
-    from path_tracer_c_tpu.utils import flops
-
-    c = flops.kernel_op_counts(
-        demo.glossy_scene(), pt.Camera.reference(), spp=2, max_bounces=3
-    )
-    assert c["unknown"] == 0, c.get("unknown_prims")
-    lanes = c["tile"][0] * c["tile"][1]
-    per_ray_bounce = c["alu"] / (lanes * 2 * 4)
-    # glossy scene (14 spheres + 2 tris + 15 materials): the per-ray-
-    # bounce ALU count sits near 1000; a big jump means someone added
-    # work to the kernel without noticing
-    assert 500 < per_ray_bounce < 2500, per_ray_bounce
-    assert c["transcendental"] > 0
